@@ -24,8 +24,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--output-dir", default=None,
                    help="directory for output files (default: deck's)")
     p.add_argument("--linear-solver", default="zline",
-                   choices=["zline", "jacobi"],
-                   help="preconditioner of the f32 BiCGStab")
+                   choices=["zline", "jacobi", "cpr", "cprt", "cpramg",
+                            "cpramgt"],
+                   help="preconditioner (the *t variants use true-IMPES "
+                        "CPR weights; cpr/cprt run FGMRES; cpramg/cpramgt "
+                        "are not ported yet)")
     p.add_argument("--tolerance-cnv", type=float, default=1e-2)
     p.add_argument("--tolerance-mb", type=float, default=1e-6)
     p.add_argument("--newton-max-iterations", type=int, default=20)
@@ -43,10 +46,12 @@ def main(argv=None) -> int:
     from opm_autodiff_tpu_torch.device import resolve_device
     from opm_autodiff_tpu_torch.io.state import load_state
     from opm_autodiff_tpu_torch.simulator import Simulator, SimulatorOptions
+    from opm_autodiff_tpu_torch.solvers.linear import check_precond
     from opm_autodiff_tpu_torch.solvers.newton import NewtonParams
     from opm_autodiff_tpu_torch.solvers.timestepper import TimeStepParams
 
     args = build_argparser().parse_args(argv)
+    check_precond(args.linear_solver)
     device = resolve_device(args.device)
     opts = SimulatorOptions(
         newton=dataclasses.replace(

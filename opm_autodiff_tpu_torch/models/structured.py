@@ -55,6 +55,9 @@ class StructuredSystem(NamedTuple):
     z_rl: torch.Tensor
     # per-cell inverse FVFs from the same packed evaluation (convergence)
     inv_b: torch.Tensor | None = None
+    # storage Jacobian d acc/du [N,3,3] from the same packed evaluation:
+    # the true-IMPES CPR weights (solvers/cpr.trueimpes_weights)
+    acc_jac: torch.Tensor | None = None
 
     @property
     def num_cells(self) -> int:
@@ -212,9 +215,10 @@ def assemble_structured(fs: FluidSystem, cells: CellStatic,
         q, dq, acc0, topo, dt)
     od = state.u.dtype if out_dtype is None else out_dtype
     inv_b = q[:, 3:6].permute(0, 2, 3, 1).reshape(nz * ny * nx, 3)
+    acc_jac = dq[:, 14:17].permute(0, 3, 4, 1, 2).reshape(nz * ny * nx, 3, 3)
     sys = StructuredSystem(
         residual=res.to(od), diag=diag.to(od),
         x_lr=x_lr.to(od), x_rl=x_rl.to(od), y_lr=y_lr.to(od),
         y_rl=y_rl.to(od), z_lr=z_lr.to(od), z_rl=z_rl.to(od),
-        inv_b=inv_b.to(state.u.dtype))
+        inv_b=inv_b.to(state.u.dtype), acc_jac=acc_jac.to(od))
     return sys, (q, dq)

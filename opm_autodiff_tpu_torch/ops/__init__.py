@@ -8,7 +8,7 @@ path went through the kernels.
 """
 
 LAUNCHES = {"cellpack": 0, "flux": 0, "spmv": 0, "zline_factor": 0,
-            "zline_apply": 0}
+            "zline_apply": 0, "cprinner": 0}
 
 
 def reset_launch_counts() -> None:

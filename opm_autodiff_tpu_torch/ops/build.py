@@ -20,7 +20,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-KERNEL_SOURCES = ("cellpack", "flux", "spmv", "zline")
+KERNEL_SOURCES = ("cellpack", "flux", "spmv", "zline", "cprinner")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]

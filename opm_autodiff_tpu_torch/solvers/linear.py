@@ -15,8 +15,11 @@ host reads the flag only every ``SYNC_EVERY`` iterations, so a solve
 pays one host sync per ``SYNC_EVERY`` iterations instead of one each.
 
 Defaults mirror FlowLinearSolverParameters.hpp: reduction 1e-2,
-maxiter 200. Preconditioners: "zline" (default) and "jacobi"; the CPR
-family is not ported yet (ROADMAP.md Queue 1 item 10).
+maxiter 200. Preconditioners: "zline" (default), "jacobi", and the
+banded CPR pair "cpr" / "cprt" (quasi- / true-IMPES weights; pressure
+stage K5, fine smoother K4; solvers/cpr.py), which take FGMRES as the
+outer solver (solvers/fgmres.py). The multigrid CPR variants are not
+ported yet (ROADMAP.md Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -93,14 +96,28 @@ def scale_system(sys: StructuredSystem, row, col, dtype) -> StructuredSystem:
     def sc(band, rsl, csl):
         return (band * rsl[..., :, None] * csl[..., None, :]).to(dtype)
 
+    # the scaled copy carries no storage Jacobian: solve_linear scales it
+    # only for the true-IMPES CPR weights, its one reader
     return sys._replace(
         diag=(sys.diag * row[:, :, None] * col[:, None, :]).to(dtype),
+        acc_jac=None,
         x_lr=sc(sys.x_lr, r3[:, :, :-1], c3[:, :, 1:]),
         x_rl=sc(sys.x_rl, r3[:, :, 1:], c3[:, :, :-1]),
         y_lr=sc(sys.y_lr, r3[:, :-1, :], c3[:, 1:, :]),
         y_rl=sc(sys.y_rl, r3[:, 1:, :], c3[:, :-1, :]),
         z_lr=sc(sys.z_lr, r3[:-1], c3[1:]),
         z_rl=sc(sys.z_rl, r3[1:], c3[:-1]))
+
+
+def equilibrate(sys: StructuredSystem, dtype):
+    """Row + column equilibration, so both the matrix entries and the
+    solution components are O(1) in ``dtype``: returns (R A C in
+    ``dtype``, row [N,nb], col [N,nb]); solve (R A C) y = R b, dx = C y."""
+    tiny = torch.finfo(sys.diag.dtype).tiny
+    row = 1.0 / torch.clamp(torch.abs(sys.diag).amax(dim=2), min=tiny)
+    dscaled = sys.diag * row[:, :, None]
+    col = 1.0 / torch.clamp(torch.abs(dscaled).amax(dim=1), min=tiny)
+    return scale_system(sys, row, col, dtype), row, col
 
 
 def bicgstab(matvec: Callable, precond: Callable, b, tol: float = 1e-2,
@@ -166,27 +183,40 @@ def bicgstab(matvec: Callable, precond: Callable, b, tol: float = 1e-2,
                              converged=rel <= tol)
 
 
+PRECONDS = ("zline", "jacobi", "cpr", "cprt")
+
+
+def check_precond(precond: str) -> None:
+    """Raise for a preconditioner the port does not have, naming the
+    ROADMAP.md item that brings it."""
+    if precond in ("cpramg", "cpramgt"):
+        raise NotImplementedError(
+            f"preconditioner {precond!r} (CPR with the multigrid pressure "
+            "stage) is not ported yet: ROADMAP.md Queue 1 item 10b")
+    if precond == "ilu0":
+        raise NotImplementedError(
+            "preconditioner 'ilu0' (block-ILU0 on the BSR layout) is not "
+            "ported yet: ROADMAP.md Queue 1 item 11")
+    if precond not in PRECONDS:
+        raise ValueError(f"unknown preconditioner {precond!r}")
+
+
 def solve_linear(sys: StructuredSystem, b=None,
                  extra_matvec: Callable | None = None, tol: float = 1e-2,
                  maxiter: int = 200, precond: str = "zline"):
-    """Solve J dx = b (default b = -residual) with equilibrated f32
-    BiCGStab. ``extra_matvec(x)`` adds the well Schur complement to the
-    operator. Mixed precision: the Krylov iteration runs in float32 for
+    """Solve J dx = b (default b = -residual) with an equilibrated Krylov
+    solver: BiCGStab, or FGMRES for the CPR preconditioners, whose apply
+    holds an inner Krylov solve (a nonlinear operator).
+    ``extra_matvec(x)`` adds the well Schur complement to the operator.
+    Mixed precision: the Krylov iteration runs in float32 for
     loose reductions (tol >= 1e-5), on a row+column-equilibrated copy of
     the system so entries and unknowns are O(1)."""
-    if precond not in ("zline", "jacobi"):
-        raise NotImplementedError(
-            f"preconditioner {precond!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 10: CPR); use 'zline' or 'jacobi'")
+    check_precond(precond)
     if b is None:
         b = -sys.residual
     f64 = sys.residual.dtype
     dtype = torch.float32 if tol >= 1e-5 else f64
-    tiny = torch.finfo(sys.diag.dtype).tiny
-    row = 1.0 / torch.clamp(torch.abs(sys.diag).amax(dim=2), min=tiny)
-    dscaled = sys.diag * row[:, :, None]
-    col = 1.0 / torch.clamp(torch.abs(dscaled).amax(dim=1), min=tiny)
-    scaled = scale_system(sys, row, col, dtype)
+    scaled, row, col = equilibrate(sys, dtype)
     b_s = (b * row).to(dtype)
     row32 = row.to(dtype)
     col32 = col.to(dtype)
@@ -197,19 +227,49 @@ def solve_linear(sys: StructuredSystem, b=None,
             z = z + extra_matvec(y * col32).to(dtype) * row32
         return z
 
-    if precond == "zline":
-        fact = zline.build_zline(scaled)
-
-        def prec(r):
-            return zline.zline_apply(fact, r)
-    else:
+    if precond == "jacobi":
         inv_diag = invert_blocks(scaled.diag)
 
         def prec(r):
             return block_jacobi_apply(inv_diag, r)
+    else:
+        fact = zline.build_zline(scaled)
 
-    res = bicgstab(matvec, prec, b_s, tol=tol, maxiter=maxiter)
+        def prec(r):
+            return zline.zline_apply(fact, r)
+
+        if precond in ("cpr", "cprt"):
+            # z-line block-Thomas as the CPR fine smoother (the banded
+            # analog of the reference's ILU0 fine smoother)
+            from opm_autodiff_tpu_torch.solvers import cpr
+
+            csys = scaled
+            if precond == "cprt" and sys.acc_jac is not None:
+                # the storage Jacobian scales like the diagonal
+                csys = scaled._replace(acc_jac=(
+                    sys.acc_jac * row[:, :, None] * col[:, None, :]).to(dtype))
+            cprb = cpr.build_cpr_banded(
+                csys, weights="trueimpes" if precond == "cprt"
+                else "quasiimpes", col_p=col32[:, 0])
+            smooth = prec
+
+            def prec(r):
+                return cpr.cpr_banded_apply(cprb, scaled, r,
+                                            cpr.CPR_INNER_ITERS, smooth)
+
+    if precond in ("cpr", "cprt"):
+        from opm_autodiff_tpu_torch.solvers.fgmres import fgmres
+
+        # restart 8: steady-state CPR solves converge in a few Arnoldi
+        # steps; hard systems take more cycles (max_cycles keeps maxiter
+        # total steps)
+        restart = 8
+        res = fgmres(matvec, prec, b_s, tol=tol,
+                     max_cycles=max(maxiter // restart, 1), restart=restart)
+    else:
+        res = bicgstab(matvec, prec, b_s, tol=tol, maxiter=maxiter)
     return LinearSolveResult(x=res.x.to(f64) * col,
                              iterations=res.iterations,
                              rel_residual=res.rel_residual.to(f64),
                              converged=res.converged)
+

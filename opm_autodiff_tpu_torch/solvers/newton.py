@@ -5,8 +5,9 @@ Port of the main-path subset of opm_autodiff_tpu/solvers/newton.py
 nonlinearIteration and opm-models' Appleyard chopping + primary-variable
 switching): the 3-equation black-oil model on a fully active structured
 grid, the 4-DOF StandardWell under BHP/rate control, the equilibrated f32
-Krylov solve with the z-line preconditioner, and a host-driven iteration
-loop. Tolerances/defaults mirror BlackoilModelParametersEbos.hpp:178-196.
+Krylov solve (BiCGStab with the z-line preconditioner, or FGMRES with
+banded CPR), and a host-driven iteration loop. Tolerances/defaults mirror
+BlackoilModelParametersEbos.hpp:178-196.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from opm_autodiff_tpu_torch.models.blackoil import (FLAG_RS, FLAG_RV,
                                                     FLAG_SG, PrimaryState)
 from opm_autodiff_tpu_torch.models.structured import assemble_structured
-from opm_autodiff_tpu_torch.solvers.linear import solve_linear
+from opm_autodiff_tpu_torch.solvers.linear import check_precond, solve_linear
 from opm_autodiff_tpu_torch.wells import standard as wells_mod
 from opm_autodiff_tpu_torch.wells import standard4 as s4
 from opm_autodiff_tpu_torch.wells.standard import CTRL_BHP, WellSet
@@ -41,7 +42,7 @@ class NewtonParams:
     drs_max_rel: float = 0.2
     linear_tol: float = 1e-2
     linear_maxiter: int = 200
-    linear_precond: str = "zline"   # "zline" | "jacobi"
+    linear_precond: str = "zline"   # "zline" | "jacobi" | "cpr" | "cprt"
     has_water: bool = True
     has_gas: bool = True
     has_oil: bool = True
@@ -72,10 +73,7 @@ def check_params(params: NewtonParams) -> None:
         raise NotImplementedError(
             "two-phase and single-phase variants are not ported yet: "
             "ROADMAP.md Queue 1 item 14")
-    if params.linear_precond not in ("zline", "jacobi"):
-        raise NotImplementedError(
-            f"preconditioner {params.linear_precond!r} is not ported yet: "
-            "ROADMAP.md Queue 1 item 10")
+    check_precond(params.linear_precond)
 
 
 def _convergence(params: NewtonParams, cells, residual, inv_b, dt,

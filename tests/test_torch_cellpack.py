@@ -200,7 +200,8 @@ def test_cellpack_plain_matches_reference_pack(tmp_path):
 def test_assembly_matches_reference_xla_branch(tmp_path):
     """K1 -> K2 (plain versions) against the reference's
     assemble_structured on the CPU (its vmap(jacfwd) branch), 4x3x3 SPE1
-    physics off equilibrium: residual, diagonal blocks, all six bands."""
+    physics off equilibrium: residual, diagonal blocks, all six bands,
+    the inverse FVFs and the storage Jacobian (true-IMPES CPR weights)."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -239,3 +240,4 @@ def test_assembly_matches_reference_xla_branch(tmp_path):
         r = np.asarray(getattr(ref, name))
         _close(g.reshape(-1, 3, 3), r.reshape(-1, 3, 3), 0, name)
     _close(got.inv_b.numpy(), ref.inv_b, 0, "inv_b")
+    _close(got.acc_jac.numpy(), ref.acc_jac, 0, "acc_jac")

@@ -37,6 +37,9 @@ def _imported_roots(tree):
 def test_port_imports_no_jax():
     files = list(_sources())
     assert len(files) > 20
+    rel = {os.path.relpath(f, PORT) for f in files}
+    # the CPR slice's modules are among those checked
+    assert {"solvers/cpr.py", "solvers/fgmres.py", "ops/cprinner.py"} <= rel
     bad = []
     for path in files:
         with open(path) as fh:
@@ -66,3 +69,11 @@ def test_entry_points_require_cuda():
         cli.main([deck, "--quiet"])
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main([deck, "--quiet", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([deck, "--quiet", "--linear-solver", "cpr"])
+    # the multigrid CPR variants are refused before any work, naming the
+    # ROADMAP item that brings them
+    for name in ("cpramg", "cpramgt"):
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            cli.main([deck, "--quiet", "--device", "cpu", "--linear-solver",
+                      name])
